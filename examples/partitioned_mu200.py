@@ -1,5 +1,5 @@
 """Example: training on one large (mu200-scale) graph partitioned across
-a TPU mesh — the capability the reference lacks (it fell back to batch=2
+a device mesh — the capability the reference lacks (it fell back to batch=2
 and subsampling at 200 pileup, `MPNN_Seg_ACTS_mu200.ipynb`).
 
 The full engine (fit / eval / checkpointing / metrics) is the same
@@ -31,11 +31,11 @@ def main():
                     help="bf16 mixed-precision sharded forward")
     args = ap.parse_args()
 
-    from gnn_fpga_tpu.data import toy2d
-    from gnn_fpga_tpu.models import mpnn
-    from gnn_fpga_tpu.parallel import mesh as mesh_lib
-    from gnn_fpga_tpu.parallel import partition
-    from gnn_fpga_tpu.train.trainer import Trainer, TrainConfig
+    from gnn_fpga_jax.data import toy2d
+    from gnn_fpga_jax.models import mpnn
+    from gnn_fpga_jax.parallel import mesh as mesh_lib
+    from gnn_fpga_jax.parallel import partition
+    from gnn_fpga_jax.train.trainer import Trainer, TrainConfig
 
     n_dev = len(jax.devices())
     print(f"{n_dev} devices: {jax.devices()}")

@@ -24,11 +24,11 @@ def main():
     ap.add_argument("--hidden-dim", type=int, default=8)
     args = ap.parse_args()
 
-    from gnn_fpga_tpu.compress import pruning
-    from gnn_fpga_tpu.core import batching
-    from gnn_fpga_tpu.data import toy2d
-    from gnn_fpga_tpu.models import mpnn
-    from gnn_fpga_tpu.train.trainer import Trainer, TrainConfig
+    from gnn_fpga_jax.compress import pruning
+    from gnn_fpga_jax.core import batching
+    from gnn_fpga_jax.data import toy2d
+    from gnn_fpga_jax.models import mpnn
+    from gnn_fpga_jax.train.trainer import Trainer, TrainConfig
 
     cfg = toy2d.Toy2DConfig(n_layers=10, n_tracks=4, seed=0)
     train_g = toy2d.make_segment_graphs(cfg, 1024)

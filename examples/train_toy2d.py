@@ -4,7 +4,7 @@ The executable equivalent of `/root/reference/gnn/MPNN_Seg_Toy2D.ipynb`:
 generate straight-track toy events, train the shared-weight
 SegmentClassifier, evaluate, and plot an event display + ROC.
 
-Run:  python examples/train_toy2d.py  [--epochs 40] [--tpu]
+Run:  python examples/train_toy2d.py  [--epochs 40]
 """
 
 import argparse
@@ -23,11 +23,11 @@ def main():
     ap.add_argument("--out", default="/tmp/toy2d_example")
     args = ap.parse_args()
 
-    from gnn_fpga_tpu.core import batching
-    from gnn_fpga_tpu.data import toy2d
-    from gnn_fpga_tpu.models import mpnn
-    from gnn_fpga_tpu.train.trainer import Trainer, TrainConfig
-    from gnn_fpga_tpu.utils import plotting
+    from gnn_fpga_jax.core import batching
+    from gnn_fpga_jax.data import toy2d
+    from gnn_fpga_jax.models import mpnn
+    from gnn_fpga_jax.train.trainer import Trainer, TrainConfig
+    from gnn_fpga_jax.utils import plotting
 
     cfg = toy2d.Toy2DConfig(n_layers=10, n_tracks=4, seed=0)
     train_g = toy2d.make_segment_graphs(cfg, args.events)

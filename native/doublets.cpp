@@ -3,12 +3,12 @@
 // The preprocessing hot loop of the reference is a pandas cross-join per
 // layer pair (`/root/reference/gnn/graph.py:44-66`), measured at ~minutes
 // per mu200 file (`GraphConstructionDev_mu200.ipynb:cell9`).  The Python
-// rewrite (gnn_fpga_tpu/data/doublets.py) vectorises it with numpy
+// rewrite (gnn_fpga_jax/data/doublets.py) vectorises it with numpy
 // broadcasting; this C++ implementation removes the O(n1*n2) temporary
 // matrices entirely (blocked loops, OpenMP across rows) and feeds the same
 // ctypes interface.
 //
-// Exported C ABI (see gnn_fpga_tpu/data/native.py):
+// Exported C ABI (see gnn_fpga_jax/data/native.py):
 //   select_segments_f64: count+emit surviving (i1, i2) pairs.
 //     Returns the number of pairs written (<= max_out); if the output
 //     capacity is insufficient, returns the required count negated.

@@ -17,8 +17,8 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from gnn_fpga_tpu.data import acts
-from gnn_fpga_tpu.data import doublets
+from gnn_fpga_jax.data import acts
+from gnn_fpga_jax.data import doublets
 
 # TrackML-like barrel radii (mm) for the 10 re-enumerated ACTS layers
 BARREL_RADII = np.array(
@@ -112,8 +112,8 @@ def test_mu200_train_step_runs(mu200_graph):
     import jax.numpy as jnp
     import optax
 
-    from gnn_fpga_tpu.core import graph as graph_lib
-    from gnn_fpga_tpu.models import mpnn
+    from gnn_fpga_jax.core import graph as graph_lib
+    from gnn_fpga_jax.models import mpnn
 
     g, _, _ = mu200_graph
     e_pad = -(-g.n_edge // 256) * 256
@@ -140,64 +140,3 @@ def test_mu200_train_step_runs(mu200_graph):
     _, _, l1 = step(params, opt_state, gj)
     assert np.isfinite(float(l0)) and np.isfinite(float(l1))
     assert float(l1) < float(l0)
-
-
-def test_mu200_pallas_plans_parity_and_training(mu200_graph):
-    """The real ACTS pipeline meets the Pallas kernels (VERDICT r4
-    missing #5 / weak #3): a doublet-constructed graph with plans
-    attached must produce the same logits on the fused path as on the
-    sparse path, and its pallas train step must learn.  A 60-particle
-    subset keeps interpret mode tractable; the on-chip artifact at full
-    mu200 scale is `benchmarks/probe_doublets.py`."""
-    import jax
-    import jax.numpy as jnp
-    import optax
-    from jax.experimental.pallas import tpu as pltpu
-
-    from gnn_fpga_tpu.core import graph as graph_lib
-    from gnn_fpga_tpu.models import mpnn
-
-    _, ev0, _ = mu200_graph
-    sub = ev0[ev0.barcode <= 60]
-    layer_pairs = doublets.adjacent_layer_pairs(10)
-    g = doublets.construct_graph(
-        sub, layer_pairs, cuts=MU200_CUTS, schema=ACTS_SCHEMA,
-        feature_scale=np.array([1000.0, np.pi, 1000.0]),
-        sort_by_layer=True)
-    e_pad = -(-g.n_edge // 64) * 64
-    gp = graph_lib.pad_graph(g, n_node=g.n_node + 8, n_edge=e_pad)
-    gpl = graph_lib.attach_plans(gp, tile_e=64)
-
-    mcfg_p = mpnn.SegmentClassifierConfig(input_dim=3, hidden_dim=16,
-                                          n_iters=2, aggregation="pallas")
-    mcfg_s = mpnn.SegmentClassifierConfig(input_dim=3, hidden_dim=16,
-                                          n_iters=2, aggregation="sparse")
-    params = mpnn.init_segment_classifier(jax.random.PRNGKey(0), mcfg_p)
-    ref = np.asarray(mpnn.segment_classifier_logits(params, gp, mcfg_s))
-    with pltpu.force_tpu_interpret_mode():
-        out = np.asarray(mpnn.segment_classifier_logits(params, gpl, mcfg_p))
-    m = np.asarray(gp.edge_mask) > 0
-    np.testing.assert_allclose(out[m], ref[m], rtol=2e-4, atol=2e-5)
-
-    opt = optax.adam(3e-3)
-    opt_state = opt.init(params)
-
-    @jax.jit
-    def step(params, opt_state, g):
-        def loss_fn(p):
-            logits = mpnn.segment_classifier_logits(p, g, mcfg_p)
-            per = optax.sigmoid_binary_cross_entropy(logits, g.y)
-            return (per * g.edge_mask).sum() / g.edge_mask.sum()
-
-        loss, grads = jax.value_and_grad(loss_fn)(params)
-        updates, opt_state = opt.update(grads, opt_state)
-        return optax.apply_updates(params, updates), opt_state, loss
-
-    gj = jax.tree.map(jnp.asarray, gpl)
-    losses = []
-    with pltpu.force_tpu_interpret_mode():
-        for _ in range(12):
-            params, opt_state, loss = step(params, opt_state, gj)
-            losses.append(float(loss))
-    assert np.isfinite(losses).all()
-    assert losses[-1] < losses[0], losses

@@ -8,8 +8,8 @@ import numpy as np
 import optax
 import pytest
 
-from gnn_fpga_tpu.data import toy2d
-from gnn_fpga_tpu.models import baselines as bl
+from gnn_fpga_jax.data import toy2d
+from gnn_fpga_jax.models import baselines as bl
 
 
 CFG = toy2d.Toy2DConfig(n_layers=5, n_tracks=3, seed=7)

@@ -13,10 +13,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gnn_fpga_tpu.core import graph as G
-from gnn_fpga_tpu.data import toy2d
-from gnn_fpga_tpu.models import mpnn
-from gnn_fpga_tpu.ops import blocked
+from gnn_fpga_jax.core import graph as G
+from gnn_fpga_jax.data import toy2d
+from gnn_fpga_jax.models import mpnn
+from gnn_fpga_jax.ops import blocked
 
 TOL = dict(rtol=2e-5, atol=2e-6)
 

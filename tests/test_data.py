@@ -9,8 +9,8 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from gnn_fpga_tpu.data import acts, doublets, muon, selection
-from gnn_fpga_tpu.data.doublets import (
+from gnn_fpga_jax.data import acts, doublets, muon, selection
+from gnn_fpga_jax.data.doublets import (
     ColumnSchema, SegmentCuts, TRACKML_SCHEMA, calc_dphi)
 
 
@@ -316,7 +316,7 @@ def test_muon_build_graphs_labels_and_extras(tmp_path):
     # mixed event: some edges false (PU-involved), signal chain true
     assert 0.0 < y.mean() <= 1.0
     paths = muon.save_graphs(graphs, str(tmp_path))
-    from gnn_fpga_tpu.core.graph import load_npz_with_extras
+    from gnn_fpga_jax.core.graph import load_npz_with_extras
     g2, ex = load_npz_with_extras(paths[0])
     assert float(ex["pt"]) == np.float32(22.5)
     np.testing.assert_allclose(np.asarray(g2.y), y)
@@ -328,7 +328,7 @@ def test_muon_build_graphs_labels_and_extras(tmp_path):
 
 def test_native_matches_numpy():
     """The C++ path must agree exactly with the numpy broadcast path."""
-    from gnn_fpga_tpu.data import native
+    from gnn_fpga_jax.data import native
     if not native.available():
         pytest.skip("native library not built (make -C native)")
     rng = np.random.default_rng(7)
@@ -347,7 +347,7 @@ def test_native_matches_numpy():
 
 def test_native_capacity_retry():
     """Wide-open cuts force the capacity-miss retry path."""
-    from gnn_fpga_tpu.data import native
+    from gnn_fpga_jax.data import native
     if not native.available():
         pytest.skip("native library not built")
     n = 64
@@ -366,7 +366,7 @@ def test_construct_graph_uses_native_consistently():
     cuts = SegmentCuts(phi_slope_max=0.004, z0_max=500.0)
     pairs = doublets.adjacent_layer_pairs(4)
     g_native = doublets.construct_graph(hits, pairs, cuts=cuts)
-    import gnn_fpga_tpu.data.native as native_mod
+    import gnn_fpga_jax.data.native as native_mod
     orig = native_mod.select_segments_native
     native_mod.select_segments_native = lambda *a, **k: None  # force numpy
     try:

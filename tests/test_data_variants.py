@@ -5,7 +5,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from gnn_fpga_tpu.data import candidates, full_events
+from gnn_fpga_jax.data import candidates, full_events
 
 
 def _hits_df(n_tracks=4, n_layers=6, n_noise=0, seed=0):
@@ -97,9 +97,9 @@ def test_candidate_training_end_to_end():
     """NodeClassifier on candidate graphs learns past the seed baseline —
     the MPNN_HitClassifier workload in miniature (`cell35`: acc 0.994)."""
     import jax
-    from gnn_fpga_tpu.core.graph import batch_graphs
-    from gnn_fpga_tpu.models import mpnn
-    from gnn_fpga_tpu.train.trainer import Trainer, TrainConfig
+    from gnn_fpga_jax.core.graph import batch_graphs
+    from gnn_fpga_jax.models import mpnn
+    from gnn_fpga_jax.train.trainer import Trainer, TrainConfig
 
     cfg = candidates.CandidateConfig(n_det_layers=4, n_layer_hits=3,
                                      n_seed_layers=2)
@@ -129,7 +129,7 @@ def test_knn_segment_graphs_static_shapes_and_labels():
     """k-NN windowed candidate edges: exact static shapes, receivers on the
     next layer, k distinct nearest senders, labels = same-track endpoints."""
     import numpy as np
-    from gnn_fpga_tpu.data import toy2d
+    from gnn_fpga_jax.data import toy2d
 
     cfg = toy2d.Toy2DConfig(n_layers=6, n_tracks=9, seed=3)
     k, n_events = 4, 5
@@ -164,7 +164,7 @@ def test_exploration_track_spans_and_deltas():
     (`ActsExplore1.ipynb:cell14,18`)."""
     import numpy as np
     import pandas as pd
-    from gnn_fpga_tpu.data import exploration as ex
+    from gnn_fpga_jax.data import exploration as ex
 
     rng = np.random.default_rng(5)
     rows = []

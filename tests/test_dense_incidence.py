@@ -1,4 +1,4 @@
-"""Dense-incidence (one-hot bmm, MXU path) vs COO sparse aggregation.
+"""Dense-incidence (one-hot bmm) vs COO sparse aggregation.
 
 The two layouts must be numerically equivalent in f32 (same sums, modulo
 summation order): ops-level and full-model, padded, masked, and vmapped.
@@ -11,11 +11,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gnn_fpga_tpu.core import graph as G
-from gnn_fpga_tpu.models import mpnn
-from gnn_fpga_tpu.ops import dense_incidence as dinc
-from gnn_fpga_tpu.ops import segment as ops
-from gnn_fpga_tpu.compress import pruning
+from gnn_fpga_jax.core import graph as G
+from gnn_fpga_jax.models import mpnn
+from gnn_fpga_jax.ops import dense_incidence as dinc
+from gnn_fpga_jax.ops import segment as ops
+from gnn_fpga_jax.compress import pruning
 
 TOL = dict(rtol=2e-5, atol=2e-6)
 

@@ -8,8 +8,8 @@ import numpy as np
 import optax
 import pytest
 
-from gnn_fpga_tpu.data import toy2d
-from gnn_fpga_tpu.models import gcn
+from gnn_fpga_jax.data import toy2d
+from gnn_fpga_jax.models import gcn
 
 
 def test_layer_adjacency():

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from gnn_fpga_tpu.core import graph as G
-from gnn_fpga_tpu.core import batching
+from gnn_fpga_jax.core import graph as G
+from gnn_fpga_jax.core import batching
 
 
 def _random_graph(rng, n_node=7, n_edge=11, n_feat=3, node_y=False):
@@ -36,8 +36,7 @@ def test_pad_graph_masks_and_pad_node():
     assert p.x.shape == (8, 3) and p.senders.shape == (10,)
     np.testing.assert_array_equal(np.asarray(p.node_mask), [1] * 5 + [0] * 3)
     np.testing.assert_array_equal(np.asarray(p.edge_mask), [1] * 6 + [0] * 4)
-    # padded edges point at the FIRST (zero-feature) pad-node slot —
-    # adjacent to the real ids so Pallas gather windows stay narrow
+    # padded edges point at the FIRST (zero-feature) pad-node slot
     assert all(np.asarray(p.senders)[6:] == 5)
     np.testing.assert_array_equal(np.asarray(p.x)[5:], 0)
     # padded dense incidence has zero columns for pad edges
@@ -138,8 +137,8 @@ def test_batch_generator_packed():
 def test_unbatch_roundtrip():
     """batch_graphs -> unbatch_graphs round-trips, and batch_generator
     accepts a batched Graph directly (toy-generator output)."""
-    from gnn_fpga_tpu.core import batching
-    from gnn_fpga_tpu.data import toy2d
+    from gnn_fpga_jax.core import batching
+    from gnn_fpga_jax.data import toy2d
     g = toy2d.make_segment_graphs(toy2d.Toy2DConfig(n_layers=4, n_tracks=3), 8)
     singles = G.unbatch_graphs(g)
     assert len(singles) == 8
@@ -152,7 +151,7 @@ def test_unbatch_roundtrip():
 def test_toy2d_radius_feature_normalized():
     """Radius feature must be scaled to [0,1] (feature_scale semantics,
     prepareGraphs.py:149-150) so the tanh input layer doesn't saturate."""
-    from gnn_fpga_tpu.data import toy2d
+    from gnn_fpga_jax.data import toy2d
     g = toy2d.make_segment_graphs(toy2d.Toy2DConfig(n_layers=12, n_tracks=2), 4)
     assert float(np.asarray(g.x)[..., 1].max()) <= 1.0
 

@@ -9,9 +9,9 @@ import jax
 import numpy as np
 import pytest
 
-from gnn_fpga_tpu.core import graph as G
-from gnn_fpga_tpu.models import mpnn
-from gnn_fpga_tpu.compress import pruning
+from gnn_fpga_jax.core import graph as G
+from gnn_fpga_jax.models import mpnn
+from gnn_fpga_jax.compress import pruning
 
 from oracle import (
     segment_classifier_dense,
@@ -138,7 +138,7 @@ def test_bf16_compute_close_to_f32():
     """Mixed-precision forward stays close to the f32 forward (bf16 has
     ~3 decimal digits; the small nets keep the drift tiny)."""
     import jax.numpy as jnp
-    from gnn_fpga_tpu.data import toy2d
+    from gnn_fpga_jax.data import toy2d
 
     g = jax.tree.map(jnp.asarray, jax.tree.map(
         lambda a: a[0], toy2d.make_segment_graphs(

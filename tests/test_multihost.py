@@ -4,8 +4,8 @@ the 8-device CPU mesh."""
 import jax
 import numpy as np
 
-from gnn_fpga_tpu.parallel import mesh as mesh_lib
-from gnn_fpga_tpu.parallel import multihost as mh
+from gnn_fpga_jax.parallel import mesh as mesh_lib
+from gnn_fpga_jax.parallel import multihost as mh
 
 
 def test_initialize_single_process_noop():

@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gnn_fpga_tpu.ops import segment as ops
+from gnn_fpga_jax.ops import segment as ops
 
 
 def _setup(rng, n_node=9, n_edge=21, f=5):

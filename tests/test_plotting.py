@@ -3,9 +3,9 @@
 import jax
 import numpy as np
 
-from gnn_fpga_tpu.data import toy2d
-from gnn_fpga_tpu.models import mpnn
-from gnn_fpga_tpu.utils import plotting
+from gnn_fpga_jax.data import toy2d
+from gnn_fpga_jax.models import mpnn
+from gnn_fpga_jax.utils import plotting
 
 
 def _one_graph():
@@ -51,8 +51,8 @@ def test_exploration_plots(tmp_path):
     """ActsExplore1-style characterization plots render and save."""
     import numpy as np
     import pandas as pd
-    from gnn_fpga_tpu.data import exploration as ex
-    from gnn_fpga_tpu.utils import plotting
+    from gnn_fpga_jax.data import exploration as ex
+    from gnn_fpga_jax.utils import plotting
 
     rng = np.random.default_rng(8)
     hits = pd.DataFrame({

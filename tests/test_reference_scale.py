@@ -19,9 +19,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gnn_fpga_tpu.data import toy2d
-from gnn_fpga_tpu.models import mpnn
-from gnn_fpga_tpu.train.trainer import Trainer, TrainConfig
+from gnn_fpga_jax.data import toy2d
+from gnn_fpga_jax.models import mpnn
+from gnn_fpga_jax.train.trainer import Trainer, TrainConfig
 
 slow = pytest.mark.skipif(
     not os.environ.get("RUN_SLOW"),

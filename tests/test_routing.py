@@ -1,9 +1,8 @@
-"""Aggregation auto-routing decisions (VERDICT r3 item 6): pin the
-layout `aggregation="auto"` picks at each measured regime, and that the
-slow-path fallback WARNS instead of silently landing on XLA segment-sum.
-Measured regimes (see models/mpnn.py and ops/blocked.py header tables):
-dense wins below V*E ~ 8M; blocked wins when blocks are attached;
-pallas when plans are attached."""
+"""Aggregation auto-routing decisions: pin the layout
+`aggregation="auto"` picks in each regime, and that the segment-sum
+fallback above the one-hot limit WARNS instead of landing there
+silently.  Regimes (see models/mpnn.py): dense below V*E ~ 8M; blocked
+when blocks are attached; sparse otherwise."""
 
 import warnings
 
@@ -11,10 +10,9 @@ import jax
 import numpy as np
 import pytest
 
-from gnn_fpga_tpu.core import graph as graph_lib
-from gnn_fpga_tpu.data import toy2d
-from gnn_fpga_tpu.models import mpnn
-from gnn_fpga_tpu.ops import blocked as blk
+from gnn_fpga_jax.data import toy2d
+from gnn_fpga_jax.models import mpnn
+from gnn_fpga_jax.ops import blocked as blk
 
 
 def _cfg(**kw):
@@ -35,15 +33,6 @@ def test_auto_picks_dense_at_sector_scale():
     assert not mpnn._use_blocked(cfg, g)
 
 
-def test_auto_picks_pallas_when_plans_attached():
-    g, _ = _graph()
-    g = graph_lib.pad_graph(g, g.n_node + 8, 96)
-    g = graph_lib.attach_plans(g, tile_e=32)
-    cfg = _cfg(aggregation="auto")
-    assert mpnn._use_pallas(cfg, g)
-    assert not mpnn._use_dense(cfg, g)
-
-
 def test_auto_picks_blocked_when_blocks_attached():
     g, tcfg = _graph()
     g = blk.attach_blocks_layered(g, toy2d.layer_offsets(tcfg))
@@ -52,12 +41,12 @@ def test_auto_picks_blocked_when_blocks_attached():
 
 
 def test_auto_warns_on_slow_fallback_above_limit():
-    """Above _DENSE_AUTO_LIMIT with nothing attached, auto must not fall
+    """Above _DENSE_AUTO_LIMIT with no blocks attached, auto must not fall
     to the XLA segment-sum path silently."""
     g, _ = _graph(n_tracks=80)  # V=480, E=30400 -> V*E = 14.6M > 8M
     assert g.n_node * g.n_edge > mpnn._DENSE_AUTO_LIMIT
     cfg = _cfg(aggregation="auto")
-    with pytest.warns(UserWarning, match="SLOW XLA segment-sum"):
+    with pytest.warns(UserWarning, match="XLA segment-sum path"):
         assert not mppn_use_dense(cfg, g)
 
 
@@ -71,25 +60,3 @@ def test_explicit_choices_never_warn():
         warnings.simplefilter("error")
         assert not mpnn._use_dense(_cfg(aggregation="sparse"), g)
         assert mpnn._use_dense(_cfg(aggregation="dense"), g)
-
-
-def test_auto_prefers_blocked_over_plans_when_both_attached():
-    """When a graph carries BOTH a BlockedPlan and Pallas plans, auto
-    routes blocked — backed by measurement, not assumption (VERDICT r4
-    missing #4): at the fullevent workload (36 mu200 sectors/step) the
-    blocked b36 step measured 7.90 ms vs 14.3 ms pallas-packed
-    (`benchmarks/probe_blocked.py --metric fullevent36` vs BENCH r4/r5
-    records, 2026-08-21, TPU v5e)."""
-    g, cfg2d = _graph()
-    off = toy2d.layer_offsets(cfg2d)
-    e_pad = -(-g.n_edge // 32) * 32
-    gp = graph_lib.pad_graph(g, g.n_node + 8, e_pad)
-    gb = blk.attach_blocks_layered(gp, off)
-    # routing decision only — graft the plans presence onto the blocked
-    # graph (each plan assumes its own edge order; they are never
-    # executed together, auto must PICK one)
-    gbp = gb.replace(plans=graph_lib.attach_plans(gp, tile_e=32).plans)
-    assert gbp.blocks is not None and gbp.plans is not None
-    cfg = _cfg(aggregation="auto")
-    assert mpnn._use_blocked(cfg, gbp)
-    assert not mpnn._use_dense(cfg, gbp)

@@ -5,9 +5,9 @@ per-step path."""
 import jax
 import numpy as np
 
-from gnn_fpga_tpu.data import toy2d
-from gnn_fpga_tpu.models import mpnn
-from gnn_fpga_tpu.train.trainer import (
+from gnn_fpga_jax.data import toy2d
+from gnn_fpga_jax.models import mpnn
+from gnn_fpga_jax.train.trainer import (
     Trainer, TrainConfig, stack_batches)
 
 

@@ -6,11 +6,11 @@ import jax
 import numpy as np
 import pytest
 
-from gnn_fpga_tpu.core import graph as G
-from gnn_fpga_tpu.data import toy2d
-from gnn_fpga_tpu.models import mpnn
-from gnn_fpga_tpu.compress import pruning
-from gnn_fpga_tpu.train.trainer import Trainer, TrainConfig, l1_penalty
+from gnn_fpga_jax.core import graph as G
+from gnn_fpga_jax.data import toy2d
+from gnn_fpga_jax.models import mpnn
+from gnn_fpga_jax.compress import pruning
+from gnn_fpga_jax.train.trainer import Trainer, TrainConfig, l1_penalty
 
 
 def _toy_batches(n_events=256, batch=32, n_layers=4, n_tracks=3, seed=0):
@@ -145,7 +145,7 @@ def test_pos_weight_loss_semantics():
     """pos_weight multiplies the positive-target BCE terms only (torch
     BCEWithLogitsLoss(pos_weight=...) semantics)."""
     import jax.numpy as jnp
-    from gnn_fpga_tpu.train.trainer import masked_bce_with_logits
+    from gnn_fpga_jax.train.trainer import masked_bce_with_logits
     logits = jnp.asarray([0.3, -1.2, 2.0, 0.0])
     targets = jnp.asarray([1.0, 0.0, 1.0, 0.0])
     mask = jnp.asarray([1.0, 1.0, 1.0, 0.0])

@@ -9,11 +9,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gnn_fpga_tpu.data import toy2d
-from gnn_fpga_tpu.models import mpnn
-from gnn_fpga_tpu.parallel import mesh as mesh_lib
-from gnn_fpga_tpu.parallel import partition
-from gnn_fpga_tpu.train.trainer import Trainer, TrainConfig, stack_batches
+from gnn_fpga_jax.data import toy2d
+from gnn_fpga_jax.models import mpnn
+from gnn_fpga_jax.parallel import mesh as mesh_lib
+from gnn_fpga_jax.parallel import partition
+from gnn_fpga_jax.train.trainer import Trainer, TrainConfig, stack_batches
 
 
 def _batched(seed=0, batch=8):
@@ -153,7 +153,7 @@ def test_partitioned_node_classifier_head():
     """Node-target training on a partitioned graph (hit classifier)."""
     mesh = mesh_lib.make_mesh((8,), (mesh_lib.GRAPH_AXIS,))
     rng = np.random.default_rng(9)
-    from gnn_fpga_tpu.core import graph as G
+    from gnn_fpga_jax.core import graph as G
     v, e = 64, 256
     g = G.from_coo(rng.normal(size=(v, 4)).astype(np.float32),
                    rng.integers(0, v, e), rng.integers(0, v, e),

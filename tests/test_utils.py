@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from gnn_fpga_tpu.utils import profiling
+from gnn_fpga_jax.utils import profiling
 
 
 def test_step_timer_throughput():
@@ -31,7 +31,7 @@ def test_nan_check_ignores_ints():
 def test_params_npz_roundtrip(tmp_path):
     """Nested dicts, stacked per-iteration params, and hostile key names all
     round-trip exactly (the keystr format broke on [ and quoted keys)."""
-    from gnn_fpga_tpu.utils import serialization as ser
+    from gnn_fpga_jax.utils import serialization as ser
 
     params = {
         "input": {"w": np.arange(6.0).reshape(2, 3), "b": np.zeros(3)},
@@ -52,7 +52,7 @@ def test_params_npz_roundtrip(tmp_path):
 
 def test_params_npz_legacy_keystr(tmp_path):
     """Round-1 keystr-format artifacts still load."""
-    from gnn_fpga_tpu.utils import serialization as ser
+    from gnn_fpga_jax.utils import serialization as ser
 
     path = tmp_path / "old.npz"
     np.savez(path, **{"['edge']['l1']['w']": np.ones((2, 2)),
@@ -62,7 +62,7 @@ def test_params_npz_legacy_keystr(tmp_path):
 
 
 def test_roc_auc_ties_vectorised_matches_naive():
-    from gnn_fpga_tpu.train.metrics import roc_auc
+    from gnn_fpga_jax.train.metrics import roc_auc
 
     rng = np.random.default_rng(0)
     # heavy ties: quantised predictions
@@ -85,7 +85,7 @@ def test_prefetch_iterator_order_and_backpressure():
     n_batches, and surfaces source exceptions."""
     import jax
     import jax.numpy as jnp
-    from gnn_fpga_tpu.core.prefetch import prefetch_to_device
+    from gnn_fpga_jax.core.prefetch import prefetch_to_device
 
     def gen():
         for i in range(10):
@@ -111,7 +111,7 @@ def test_prefetch_iterator_order_and_backpressure():
 
 def test_prefetch_close_stops_worker():
     import itertools
-    from gnn_fpga_tpu.core.prefetch import prefetch_to_device
+    from gnn_fpga_jax.core.prefetch import prefetch_to_device
 
     def infinite():
         for i in itertools.count():
